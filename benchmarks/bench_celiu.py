@@ -1,7 +1,7 @@
 """Variational-flow GT generation throughput (BASELINE config 2): celiu
-coarse-to-fine IRLS on the bundled car pair, single-pair and vmapped-batch
-rates on the TPU chip. Also writes qualitative artifacts (flow HSV + warp)
-into examples/."""
+coarse-to-fine IRLS on the reference car pair, single-pair and
+explicit-batch rates on the GPU, each run ended by jax.block_until_ready.
+Also writes qualitative artifacts (flow HSV + warp) into examples/."""
 
 import os
 import sys
@@ -29,35 +29,31 @@ def main():
     solve = jax.jit(lambda a, b: celiu.coarse2fine_flow(a, b, **kw))
 
     t0 = time.perf_counter()
-    u, v, warped = solve(jnp.asarray(im1), jnp.asarray(im2))
-    float(u.sum())
+    u, v, warped = jax.block_until_ready(solve(jnp.asarray(im1),
+                                               jnp.asarray(im2)))
     print(f"compile+run: {time.perf_counter() - t0:.0f}s", flush=True)
 
     N = 10
     t0 = time.perf_counter()
     for _ in range(N):
         u, v, warped = solve(jnp.asarray(im1), jnp.asarray(im2))
-    float(u.sum())
+    jax.block_until_ready(u)
     dt = (time.perf_counter() - t0) / N
     print(f"celiu single-pair: {dt*1e3:.1f} ms/pair -> {1/dt:.1f} pairs/s",
           flush=True)
 
     # Batch scaling via the EXPLICIT leading-batch solver
-    # (coarse2fine_flow_batched). Historical note: vmapping the solver
-    # instead crashes the TPU worker (kernel fault) at B >= 4 on v5e /
-    # jax 0.9 (B=2 vmap worked: 40.3 pairs/s at the lighter 4/1/30
-    # schedule); the explicit batch has no such limit.
+    # (coarse2fine_flow_batched).
     for B in (2, 4, 8, 16):
         solve_b = jax.jit(
             lambda a, b: celiu.coarse2fine_flow_batched(a, b, **kw))
         bb1 = jnp.broadcast_to(jnp.asarray(im1), (B, H, W, 3))
         bb2 = jnp.broadcast_to(jnp.asarray(im2), (B, H, W, 3))
-        ub, vb, wb = solve_b(bb1, bb2)
-        float(ub.sum())
+        jax.block_until_ready(solve_b(bb1, bb2))
         t0 = time.perf_counter()
         for _ in range(3):
             ub, vb, wb = solve_b(bb1, bb2)
-        float(ub.sum())
+        jax.block_until_ready(ub)
         dtb = (time.perf_counter() - t0) / (3 * B)
         print(f"celiu explicit batch B={B}: {dtb*1e3:.1f} ms/pair -> "
               f"{1/dtb:.1f} pairs/s", flush=True)

@@ -1,9 +1,9 @@
-"""Training-step throughput on the TPU chip: single-scale patch NLL
-trainer and the multiscale fovea trainer at reference shapes.
+"""Training-step throughput on the GPU: single-scale patch NLL trainer and
+the multiscale fovea trainer at reference shapes, each step ended by
+jax.block_until_ready.
 
 The reference trains strictly batch-1 SGD on a 2012 CPU
-(/root/reference/opticalflow.lua:280-342, no published rate); this records
-the TPU rebuild's samples/s for the perf story.
+(/root/reference/opticalflow.lua:280-342, no published rate).
 """
 
 import os
@@ -38,13 +38,13 @@ def main():
     it = jnp.asarray(rng.randint(0, g.maxh * g.maxw, B), jnp.int32)
     soft_t = jnp.zeros((B, g.maxh * g.maxw), jnp.float32)
 
-    state, aux = trainer._step(state, p1, p2, it, soft_t)
-    float(aux["loss"])
+    state, aux = jax.block_until_ready(trainer._step(state, p1, p2, it,
+                                                     soft_t))
     t0 = time.perf_counter()
     N = 20
     for _ in range(N):
         state, aux = trainer._step(state, p1, p2, it, soft_t)
-    float(aux["loss"])
+    jax.block_until_ready(state)
     dt = (time.perf_counter() - t0) / N
     print(f"single-scale train step (B={B}, 32x32 patches): "
           f"{dt*1e3:.2f} ms -> {B/dt:.0f} samples/s", flush=True)
@@ -62,12 +62,11 @@ def main():
     c2 = jnp.asarray(rng.rand(B2, Hm, Wm, 3), jnp.float32)
     itg = jnp.zeros(B2, jnp.int32)
 
-    st2, aux2 = t2._step(st2, c1, c2, itg)
-    float(aux2["loss"])
+    st2, aux2 = jax.block_until_ready(t2._step(st2, c1, c2, itg))
     t0 = time.perf_counter()
     for _ in range(N):
         st2, aux2 = t2._step(st2, c1, c2, itg)
-    float(aux2["loss"])
+    jax.block_until_ready(st2)
     dt2 = (time.perf_counter() - t0) / N
     print(f"multiscale fovea train step (B={B2}, 2 scales, "
           f"{Hm}x{Wm} crops): {dt2*1e3:.2f} ms -> {B2/dt2:.0f} samples/s",

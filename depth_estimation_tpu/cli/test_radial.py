@@ -55,9 +55,9 @@ def main(argv=None) -> int:
     net = RadialFlowNetwork(layers, args.h_win)
     params = net.init(jax.random.PRNGKey(0))
     if args.weights:
-        import flax.serialization
+        from ..models.io import from_bytes
         with open(args.weights, "rb") as f:
-            params = flax.serialization.from_bytes(params, f.read())
+            params = from_bytes(params, f.read())
 
     cal = calmod.PRESETS[args.calibration]
     loader = img_mod.ImageLoader(args.root_directory, cal.hImg, cal.wImg)

@@ -15,11 +15,11 @@ generator (liuflow / celiu: /root/reference/celiu/mex/OpticalFlow.cpp):
   * bilinear warping with out-of-range pixels taking frame-1 values
     (interpolation=Bilinear at :17, ImageProcessing warpImage).
 
-TPU-first deviation (documented): the omega=1.8 SOR relaxation is sequential
+Deviation (documented): the omega=1.8 SOR relaxation is sequential
 Gauss-Seidel in the reference; here it is RED-BLACK SOR — the classic
 parallel reordering that solves the same linear system (same A, same b, same
-omega) with checkerboard sweeps, mapping onto the VPU as dense elementwise
-updates. Fixed points are identical; iterates differ only in sweep order.
+omega) with checkerboard sweeps, as dense elementwise updates. Fixed points
+are identical; iterates differ only in sweep order.
 ``tests/test_celiu.py`` verifies convergence to the sequential solver's
 solution on the same system.
 
@@ -129,10 +129,10 @@ def bilinear_sample(img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray,
     clamped corners (ImageProcessing::BilinearInterpolate, clamp via
     EnforceRange). Leading batch dims of img and x/y must match.
 
-    ``packed=True`` selects the packed-tap TPU formulation: the four taps
+    ``packed=True`` selects the packed-tap formulation: the four taps
     live in ONE edge-padded (H, W, 4C) table so a single gather fetches
-    them all — TPU gather cost is bound by index-processing rate, not row
-    bytes. Equal to the four-tap form within float rounding (<= 1e-6,
+    them all (one index per sample instead of four). Equal to the four-tap
+    form within float rounding (<= 1e-6,
     enforced per call shape by
     tests/test_celiu.py::test_packed_bilinear_matches_four_tap — NOT
     bitwise: collapsed-tap blends like (1-dx)*v + dx*v are only ulp-equal
@@ -142,13 +142,11 @@ def bilinear_sample(img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray,
     clamping produced, and the edge pad reproduces the +1-tap clamp at
     the last row/column.
 
-    Where each form wins (measured): packed took the celiu solve from
-    34.1 to 10.9 ms/pair (the warp + pyramid resamples were 61% of it —
-    benchmarks/profile_celiu.py) and is the celiu-internal default; the
-    four-tap form stays the global default because at the full pipeline's
-    warp shape (B=32, 180x320, C=10) packing measured SLOWER (278 -> 220
-    fps — 40-channel rows push the gather into its byte-bound regime),
-    and because packing changes XLA fusion rounding at the ulp level,
+    Which form where: packed is the celiu-internal default (the warp and
+    pyramid resamples dominate that solve); the four-tap form stays the
+    global default because at the full pipeline's warp shape (C=10)
+    40-channel rows push the gather into its byte-bound regime, and
+    because packing changes XLA fusion rounding at the ulp level,
     which knife-edge RANSAC consumers (the rectification loaders) amplify
     into visibly different inlier sets."""
     if packed:
@@ -450,8 +448,7 @@ def _sor_xla(du, dv, w_w, w_e, w_n, w_s, denom_u, denom_v, b1, b2, imdxy,
     """n_sor red-black SOR iterations as an XLA fori_loop (the general
     form: any shape, any warm du/dv start). The update rule and in-place
     scan order (red du, red dv, black du, black dv) mirror
-    OpticalFlow.cpp:381-427; sor_kernel.sor_pallas is the VMEM-resident
-    TPU form of the same sweep, equality-tested against this one."""
+    OpticalFlow.cpp:381-427."""
     H, W = du.shape[-2:]
     ii, jj = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     red = jnp.asarray((ii + jj) % 2 == 0)
@@ -482,8 +479,7 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
 
     Shapes: images/warp (..., H, W, C), flows (..., H, W), lap_para (..., C)
     — leading batch dims solve B independent systems in the SAME dense
-    program (the explicit-batch regime; vmapping the whole solver instead
-    faults the TPU worker at B >= 4, see CLAUDE.md)."""
+    program (the explicit-batch regime, no vmap over the solver)."""
     eps_phi = 1e-6
     eps_psi = 1e-6
     omega = 1.8
@@ -538,22 +534,9 @@ def smooth_flow_sor(im1f, im2f, warp, u, v, lap_para, alpha,
             denom_u = imdx2 + alpha * 0.05 + coeff
             denom_v = imdy2 + alpha * 0.05 + coeff
 
-            # n_inner == 1 everywhere the reference runs (its GT generator
-            # and test schedules): du/dv enter the sweep as zeros, so the
-            # whole n_sor-iteration red-black solve can run VMEM-resident
-            # (flow/sor_kernel.py) instead of re-reading all coefficient
-            # planes from HBM every iteration. With n_inner > 1 (warm
-            # du/dv) or levels too large for VMEM, keep the XLA loop.
-            from .sor_kernel import fits_vmem, sor_pallas
-            if (hh == 0 and jax.default_backend() == "tpu"
-                    and fits_vmem(H, W)):
-                du, dv = sor_pallas(w_w, w_e, w_n, w_s, denom_u, denom_v,
-                                    b1, b2, imdxy,
-                                    alpha=alpha, n_sor=n_sor, omega=omega)
-            else:
-                du, dv = _sor_xla(du, dv, w_w, w_e, w_n, w_s,
-                                  denom_u, denom_v, b1, b2, imdxy,
-                                  alpha=alpha, n_sor=n_sor, omega=omega)
+            du, dv = _sor_xla(du, dv, w_w, w_e, w_n, w_s,
+                              denom_u, denom_v, b1, b2, imdxy,
+                              alpha=alpha, n_sor=n_sor, omega=omega)
 
         u = u + du
         v = v + dv
@@ -637,10 +620,8 @@ def coarse2fine_flow_batched(
     warps) carries an explicit leading batch dim, and the warps' data-
     dependent lookups are single batched take_along_axis gathers.
 
-    This is the TPU batching path — an outer ``jax.vmap`` over the solver
-    faults the TPU worker at B >= 4 (kernel fault, v5e / jax 0.9; B = 2
-    worked and was the round-2 config2 regime). The explicit batch avoids
-    vmap entirely. Returns (vx, vy, warped), each with leading B."""
+    The explicit batch keeps the solver out of ``jax.vmap``. Returns
+    (vx, vy, warped), each with leading B."""
     im1s = jnp.asarray(im1s, jnp.float32)
     im2s = jnp.asarray(im2s, jnp.float32)
     if im1s.ndim == 3:                       # (B, H, W) gray

@@ -1,4 +1,4 @@
-"""Geometry / learning configuration for the TPU flow+depth framework.
+"""Geometry / learning configuration for the flow+depth framework.
 
 The reference builds free-form Lua tables named ``geometry`` and ``learning``
 (see /root/reference/opticalflow.lua:120-220, radial/train_radial_opticalflow.lua:83-130).

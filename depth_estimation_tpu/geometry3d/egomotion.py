@@ -70,9 +70,9 @@ def _grid_select(score: jnp.ndarray, max_points: int, quality):
     aspect; see _grid_dims) — selector='grid'.
 
     ``score`` (H, W, B) is the non-negative peak map (zero off-peak).
-    Returns (pts (B, N, 2) as (x, y), valid (B, N)). lax.top_k over the
-    flat H*W map lowers to a full sort on TPU; the cell form is two
-    reshape-reduces, and taking one corner per cell ALSO enforces the
+    Returns (pts (B, N, 2) as (x, y), valid (B, N)). No lax.top_k over the
+    flat H*W map: the cell form is two reshape-reduces, and taking one
+    corner per cell ALSO enforces the
     spatial spread OpenCV's goodFeaturesToTrack gets from its minDistance
     rule — RANSAC conditioning wants spread corners, not the global top-K
     clustered on the most textured region. Ties within a cell break to the
@@ -150,7 +150,7 @@ def good_features_to_track(
 
 def _sample_patches_gather(img: jnp.ndarray, pts: jnp.ndarray, win: int) -> jnp.ndarray:
     """Bilinear (win, win) patches centered (ceil) on pts (N, 2=(x,y)) —
-    gather formulation (reference semantics; slow on TPU, kept for tests)."""
+    gather formulation (reference semantics, kept for tests)."""
     off = jnp.arange(win, dtype=jnp.float32) - (win - 1) / 2.0
     dy, dx = jnp.meshgrid(off, off, indexing="ij")
     xs = pts[:, 0][:, None, None] + dx[None]
@@ -174,10 +174,9 @@ def _axis_weights(coords: jnp.ndarray, n: int) -> jnp.ndarray:
 def _sample_patches(img: jnp.ndarray, pts: jnp.ndarray, win: int) -> jnp.ndarray:
     """Bilinear (win, win) patches centered (ceil) on pts (N, 2=(x,y)).
 
-    TPU formulation: bilinear sampling is separable, so each patch is
+    Matmul formulation: bilinear sampling is separable, so each patch is
     Ry @ img @ Cx^T with 2-hot row/column selection matrices — two batched
-    matmuls on the MXU instead of N*win*win scattered gathers (minor-dim
-    gathers are pathological on TPU; this is the one-hot-matmul rule)."""
+    matmuls instead of N*win*win scattered gathers."""
     H, W = img.shape
     off = jnp.arange(win, dtype=jnp.float32) - (win - 1) / 2.0
     ys = pts[:, 1][:, None] + off[None]               # (N, win)
@@ -203,11 +202,10 @@ def _gather_window(img: jnp.ndarray, by: jnp.ndarray, bx: jnp.ndarray,
                    s: int, precision=jax.lax.Precision.DEFAULT) -> jnp.ndarray:
     """(s, s) integer-aligned windows of img (H, W) at top-left (by, bx)
     (N,) int32, indices clamped (replicate borders). One-hot row/column
-    MATMULS — measured: a take_along_axis formulation looks cheaper on
-    paper but its minor-dim column gather is pathological on TPU (14 ms vs
-    1.8 ms per pair for the LK stage at B=64); integer one-hots are exact
-    in any dtype, so DEFAULT (bf16 MXU passes) precision only rounds the
-    [0,1] image values (~4e-3), well under the tracker's noise floor."""
+    MATMULS instead of a take_along_axis column gather; integer one-hots
+    are exact in any dtype, so DEFAULT precision (bf16 or TF32 passes)
+    only rounds the [0,1] image values (~4e-3 at worst), well under the
+    tracker's noise floor."""
     H, W = img.shape
     k = jnp.arange(s, dtype=jnp.int32)
     dt = jnp.bfloat16 if precision == jax.lax.Precision.DEFAULT else img.dtype
@@ -294,12 +292,11 @@ def track_lk_windowed(
         # sum_ij w(d)[1+i,1+j]*tx[i,j] is EXACTLY the bilinear sample at
         # (ly+1, lx+1) of the cross-correlation surface
         #   corr_x(p, q) = sum_ij wnd[p+i, q+j] * tx[i, j],
-        # computed ONCE per level as a per-point depthwise conv (MXU) —
-        # the per-iteration loop then touches only (N,)-sized tensors.
-        # (The previous form re-extracted a (win+1)^2 sub-window via
-        # one-hot matmuls every iteration — ~3% MXU utilization, 30x per
-        # track; a banded static-shift extraction was tried and is
-        # pathological to COMPILE: >10 min XLA under vmap in this loop.)
+        # computed ONCE per level as a per-point depthwise conv — the
+        # per-iteration loop then touches only (N,)-sized tensors instead
+        # of re-extracting a (win+1)^2 sub-window every iteration. (A
+        # banded static-shift extraction is pathological to COMPILE under
+        # vmap in this loop.)
         kw = win - 2                                        # 13: interior
         P = search - kw + 1                                 # corr positions
         dn = jax.lax.conv_dimension_numbers(
@@ -455,7 +452,7 @@ def _model_residuals(x, pts_in, pts_out, w_center, h_center):
 def lsq_trans_ransac(pts_in, pts_out, w_center, h_center,
                      n_samples: int = 64, key=None):
     """RANSAC over minimal 5-point samples, all samples evaluated in one
-    batched solve (the TPU reformulation of lsq_trans_ransac,
+    batched solve (the batched reformulation of lsq_trans_ransac,
     /root/reference/motion_correction.lua:149-169 — fixed sample count
     instead of the sequential p=0.99 adaptive loop). Inlier rule: residual
     <= sqrt(5.99 * std(residuals)^2) (:48)."""
@@ -514,10 +511,10 @@ class EgoMotion(NamedTuple):
 def _eight_point(p1n, p2n):
     """Normalized 8-point: p1n, p2n (8, 2) normalized coords -> E (3, 3).
 
-    TPU formulation: the nullspace of the (8, 9) A is the orthogonal
+    QR formulation: the nullspace of the (8, 9) A is the orthogonal
     complement of range(A^T) — the last column of a COMPLETE Householder QR
-    of A^T. Batched QR lowers far better than batched SVD on TPU (RANSAC
-    runs 64 of these per pair), and unlike an eigh of A^T A it never
+    of A^T. Batched QR is used instead of batched SVD (RANSAC runs 64 of
+    these per pair), and unlike an eigh of A^T A it never
     squares the conditioning (the squared system cannot separate a
     sigma_8 ~ 1e-4 direction from the nullspace in f32 — measured 1e-2
     nullspace error vs 2e-4 for QR, 2e-5 for SVD). The essential-manifold
@@ -751,7 +748,7 @@ def get_ego_motion(img1, img2, K, max_points: int = 400,
     (offline loaders; matches the batched device programs exactly).
 
     The whole pipeline runs as ONE jitted program — eager composition costs
-    thousands of per-op dispatches (catastrophic on tunneled backends)."""
+    thousands of per-op dispatches)."""
     if key is None:
         key = jax.random.PRNGKey(1)
     return _ego_motion_jit(jnp.asarray(img1), jnp.asarray(img2),

@@ -102,13 +102,11 @@ def remove_ego_motion_batched(imgs: jnp.ndarray, K, R,
     """remove_ego_motion over B items with per-item rotations — imgs
     (B, H, W, C), R (B, 3, 3). The four bilinear corner lookups are single
     batched take_along_axis gathers over the flattened (H*W) axis (the
-    celiu _gather_hw formulation) instead of a vmapped 2-D gather — the
-    vmapped form measured 6.2 ms/pair on the 10-channel feature maps of the
-    batched full pipeline; this one is the fast path it replaces
-    (benchmarks/profile_full_pipeline.py). ``dtype``: optional storage type
+    celiu _gather_hw formulation) instead of a vmapped 2-D gather.
+    ``dtype``: optional storage type
     for the gathered values (bf16 halves the gather traffic; interpolation
     weights stay f32 and the result promotes back to f32 — the same
-    inference-only precision option as the matcher's, see README)."""
+    inference-only precision option as the matcher's)."""
     from ..flow.celiu import bilinear_sample
     B, H, W = imgs.shape[0], imgs.shape[1], imgs.shape[2]
     if dtype is not None:
@@ -143,15 +141,13 @@ def remove_ego_motion_exact(imgs: jnp.ndarray, K, R,
                             band: int = 8, dtype=None) -> jnp.ndarray:
     """The UNCONDITIONAL 4-tap gather warp (the reference's
     sfm2.removeEgoMotion, /root/reference/depth_estimation_api.lua:147 —
-    no band restriction), made fast by speculation: TPU gathers issue at
-    index-processing rate (benchmarks/speed_of_light.py bounds the flat
-    form at the pipeline shape), but on every frame the online pipeline
-    keeps, the rotation-compensation displacement sits well inside the
-    matcher's search margin — so dispatch on a cheap on-device predicate
-    (warp_in_band: pure arithmetic on the homography grid):
+    no band restriction), dispatched by speculation: on every frame the
+    online pipeline keeps, the rotation-compensation displacement sits well
+    inside the matcher's search margin, so a cheap on-device predicate
+    (warp_in_band: pure arithmetic on the homography grid) picks the form:
 
-      * covered (the common case): the VMEM-resident banded Pallas kernel
-        (ops/warp.banded_bilinear_warp) — same bilinear tensor product,
+      * covered (the common case): the gather-free banded shift-sum
+        (remove_ego_motion_banded) — the same bilinear tensor product,
         equal to the gather within float rounding wherever the
         displacement is in-band, which the predicate just proved is
         everywhere in-frame;
@@ -184,32 +180,6 @@ def remove_ego_motion_exact(imgs: jnp.ndarray, K, R,
 @functools.partial(jax.jit, static_argnums=(3, 4))
 def remove_ego_motion_banded(imgs: jnp.ndarray, K, R,
                              band: int = 8, dtype=None) -> jnp.ndarray:
-    """See _remove_ego_motion_banded_xla. On TPU the f32 path dispatches to
-    the VMEM-resident Pallas kernel (ops/warp.banded_bilinear_warp):
-    bit-identical shift/weight math, measured 1.06 -> 0.45 ms/pair at the
-    pipeline shape (B=32, 180x320x10 — the XLA lowering of the 324-term
-    static unroll runs ~0.35 TFLOP/s, fusion overhead, not bandwidth; the
-    kernel runs the same unroll VMEM-resident with lane shifts hoisted).
-    The reduced-precision storage option (``dtype``) keeps the XLA form —
-    bf16 measured NO speedup here (not bandwidth-bound), so the kernel is
-    f32-only."""
-    # guard on the ACTUAL array dtype too: bf16 stream state
-    # (state_dtype=bf16) must not reach the f32-tuned kernel, whose slab
-    # DMAs are 8-sublane-aligned (bf16 needs 16 — the Mosaic trap)
-    if (dtype is None and imgs.dtype == jnp.float32
-            and jax.default_backend() == "tpu"):
-        from ..ops.warp import banded_bilinear_warp
-        H, W = imgs.shape[1], imgs.shape[2]
-        xs, ys = homography_grid(K, R, H, W)
-        out = banded_bilinear_warp(imgs, xs, ys, band)
-        # same jit: XLA CSEs the homography grid between warp and mask
-        return out * ego_motion_valid_mask(K, R, H, W, band=band)[..., None]
-    return _remove_ego_motion_banded_xla(imgs, K, R, band, dtype)
-
-
-@functools.partial(jax.jit, static_argnums=(3, 4))
-def _remove_ego_motion_banded_xla(imgs: jnp.ndarray, K, R,
-                                  band: int = 8, dtype=None) -> jnp.ndarray:
     """remove_ego_motion_batched without the gather: the warp displacement
     |K R K^-1 p - p| of frame-to-frame rotation compensation is bounded by
     the matcher's search margin on every frame the pipeline keeps, so the
@@ -219,10 +189,9 @@ def _remove_ego_motion_banded_xla(imgs: jnp.ndarray, K, R,
         out[y, x] = sum_{s,t in [-band, band+1]}
                     hat(sy - y - s) * hat(sx - x - t) * img[y+s, x+t],
 
-    which is pure slice/multiply/add work XLA fuses into one VPU pass —
-    measured 1.06 ms/pair vs 7.7 ms/pair for the flat take_along_axis
-    gather at the pipeline shape (B=32, 180x320x10 f32), identical output
-    to 8e-4 (f32 accumulation-order noise).
+    which is pure slice/multiply/add work that XLA fuses into one pass
+    (equal to the flat take_along_axis gather up to f32 accumulation
+    order).
 
     Exact-or-masked for ANY rotation: pixels whose displacement exceeds
     ``band`` are zeroed and excluded from the validity mask (use

@@ -6,9 +6,12 @@ reference uses nn.SpatialConvolutionMap with a random sparse connection table
 when consecutive layer channel counts don't chain
 (/root/reference/opticalflow_model.lua:56-59), reproduced here by
 SparseConvMap: the reference's sparse parameter count, scattered into a
-dense kernel at apply time so the conv still runs dense on the MXU.
+dense kernel at apply time so the conv still runs dense.
 
-Layout is NHWC (TPU-native). Weights are named ``layer1..layerN`` to mirror
+Plain JAX: each module has ``init(rng, x) -> {"params": ...}`` and
+``apply(params, x)``, with the parameter tree, names and initializers of
+the equivalent flax.linen modules, so checkpoints written by either load
+into both. Layout is NHWC. Weights are named ``layer1..layerN`` to mirror
 the reference's named-weights checkpoint payload
 (/root/reference/opticalflow_model.lua:66-76).
 """
@@ -17,7 +20,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,29 +28,39 @@ from ..geometry import Geometry
 from ..ops.s2d_conv import pick_s2d_factor, s2d_conv
 
 
-class TrunkConv(nn.Module):
+class _Layer:
+    """``init``/``apply`` on a ``{"params": layer_params}`` tree, for a
+    layer used on its own."""
+
+    def init(self, rng, x: jnp.ndarray) -> dict:
+        return {"params": self.init_layer(rng, x.shape[-1])}
+
+    def apply(self, params, x: jnp.ndarray) -> jnp.ndarray:
+        return self(params["params"], x)
+
+
+class TrunkConv(_Layer):
     """nn.Conv-compatible VALID conv that dispatches to the width-folded
-    (space-to-depth) form when the output-channel count underfills the
-    MXU lanes — the direct conv measured ~10% of the chip ceiling at the
-    trunk's 3->10 shapes (ops/s2d_conv.py has the full story and
-    benchmarks/bench_trunk_variants.py the measurements). Param names,
-    shapes, and initializers match nn.Conv exactly, so checkpoints are
-    interchangeable and existing models load unchanged."""
+    (space-to-depth) form when ops/s2d_conv.pick_s2d_factor asks for it.
+    Param names, shapes, and initializers match nn.Conv (lecun-normal
+    kernel (kh, kw, cin, cout), zero bias)."""
 
-    features: int
-    kernel_size: Tuple[int, int]
+    def __init__(self, features: int, kernel_size: Tuple[int, int]):
+        self.features = features
+        self.kernel_size = tuple(kernel_size)
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
+    def init_layer(self, key, cin: int) -> dict:
         kh, kw = self.kernel_size
-        cin = x.shape[-1]
-        kernel = self.param("kernel", nn.initializers.lecun_normal(),
-                            (kh, kw, cin, self.features), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros,
-                          (self.features,), jnp.float32)
-        s = pick_s2d_factor(kh, kw, cin, self.features)
-        y = s2d_conv(x, kernel.astype(x.dtype), s)
-        return y + bias.astype(y.dtype)
+        kernel = jax.nn.initializers.lecun_normal()(
+            key, (kh, kw, cin, self.features), jnp.float32)
+        return {"bias": jnp.zeros((self.features,), jnp.float32),
+                "kernel": kernel}
+
+    def __call__(self, p, x: jnp.ndarray) -> jnp.ndarray:
+        kh, kw = self.kernel_size
+        s = pick_s2d_factor(kh, kw, x.shape[-1], self.features)
+        y = s2d_conv(x, p["kernel"].astype(x.dtype), s)
+        return y + p["bias"].astype(y.dtype)
 
 
 def random_connection_table(nin: int, nout: int, nto: int,
@@ -62,48 +74,48 @@ def random_connection_table(nin: int, nout: int, nto: int,
                      for _ in range(nout)])
 
 
-class SparseConvMap(nn.Module):
+class SparseConvMap(_Layer):
     """nn.SpatialConvolutionMap(nn.tables.random(nin, nout, nto))
     (/root/reference/opticalflow_model.lua:56-59): each output map reads a
     fixed random subset of nto input channels. Parameters are exactly the
     sparse (kh, kw, nto, nout) kernel (reference parameter count); at apply
     time it is scattered into a dense (kh, kw, nin, nout) kernel so the
-    conv still runs dense on the MXU — sparse-random connectivity was a
-    2012 FLOP-saving trick, not something a systolic array wants."""
+    conv still runs dense — sparse-random connectivity was a 2012
+    FLOP-saving trick, not something a matrix unit wants."""
 
-    nin: int
-    nout: int
-    nto: int
-    kh: int
-    kw: int
-    seed: int = 0
+    def __init__(self, nin: int, nout: int, nto: int, kh: int, kw: int,
+                 seed: int = 0):
+        self.nin, self.nout, self.nto = nin, nout, nto
+        self.kh, self.kw = kh, kw
+        self.table = random_connection_table(nin, nout, nto, seed)
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        table = random_connection_table(self.nin, self.nout, self.nto,
-                                        self.seed)
-        kernel = self.param(
-            "kernel",
-            nn.initializers.variance_scaling(1.0 / 3, "fan_in", "uniform",
-                                             in_axis=(0, 1, 2)),
-            (self.kh, self.kw, self.nto, self.nout))
-        bias = self.param("bias", nn.initializers.zeros, (self.nout,))
+    def init_layer(self, key, cin: int) -> dict:
+        kernel = jax.nn.initializers.variance_scaling(
+            1.0 / 3, "fan_in", "uniform", in_axis=(0, 1, 2))(
+            key, (self.kh, self.kw, self.nto, self.nout), jnp.float32)
+        return {"bias": jnp.zeros((self.nout,), jnp.float32),
+                "kernel": kernel}
+
+    def __call__(self, p, x: jnp.ndarray) -> jnp.ndarray:
         # scatter sparse -> dense: one-hot (nout, nto, nin) selection
         onehot = np.zeros((self.nout, self.nto, self.nin), np.float32)
         for o in range(self.nout):
             for j in range(self.nto):
-                onehot[o, j, table[o, j]] = 1.0
-        dense = jnp.einsum("hwjo,ojn->hwno", kernel.astype(jnp.float32),
-                           jnp.asarray(onehot)).astype(x.dtype)
+                onehot[o, j, self.table[o, j]] = 1.0
+        dense = jnp.einsum("hwjo,ojn->hwno",
+                           jnp.asarray(p["kernel"], jnp.float32),
+                           jnp.asarray(onehot),
+                           precision=jax.lax.Precision.HIGHEST
+                           ).astype(x.dtype)
         y = jax.lax.conv_general_dilated(
             x[None] if x.ndim == 3 else x, dense,
             window_strides=(1, 1), padding="VALID",
             dimension_numbers=("NHWC", "HWIO", "NHWC"))
-        y = y + bias.astype(y.dtype)
+        y = y + p["bias"].astype(y.dtype)
         return y[0] if x.ndim == 3 else y
 
 
-class ConvFilter(nn.Module):
+class ConvFilter:
     """Feature trunk: geometry.layers = ((cin, kh, kw, cout), ...).
 
     When a layer's nominal cin differs from the previous layer's cout, the
@@ -112,25 +124,31 @@ class ConvFilter(nn.Module):
     /root/reference/opticalflow_model.lua:53-59; the trainer's -s2c/-s3c
     flags feed that first element) — reproduced here by SparseConvMap."""
 
-    geometry: Geometry
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        layers = self.geometry.layers
+    def __init__(self, geometry: Geometry):
+        self.geometry = geometry
+        layers = geometry.layers
+        self.layers = []
         for i, (cin, kh, kw, cout) in enumerate(layers):
             prev_cout = layers[i - 1][3] if i > 0 else cin
             if i > 0 and prev_cout != cin:
-                x = SparseConvMap(
-                    nin=prev_cout, nout=cout, nto=cin, kh=kh, kw=kw,
-                    name=f"layer{i + 1}")(x)
+                self.layers.append(SparseConvMap(
+                    nin=prev_cout, nout=cout, nto=cin, kh=kh, kw=kw))
             else:
-                x = TrunkConv(
-                    features=cout,
-                    kernel_size=(kh, kw),
-                    name=f"layer{i + 1}",
-                )(x)
-            if i != len(layers) - 1:
-                x = nn.tanh(x)
+                self.layers.append(TrunkConv(cout, (kh, kw)))
+
+    def init(self, rng, x: jnp.ndarray) -> dict:
+        keys = jax.random.split(rng, len(self.layers))
+        cins = [x.shape[-1]] + [l[3] for l in self.geometry.layers[:-1]]
+        return {"params": {
+            f"layer{i + 1}": layer.init_layer(keys[i], cins[i])
+            for i, layer in enumerate(self.layers)}}
+
+    def apply(self, params, x: jnp.ndarray) -> jnp.ndarray:
+        p = params["params"]
+        for i, layer in enumerate(self.layers):
+            x = layer(p[f"layer{i + 1}"], x)
+            if i != len(self.layers) - 1:
+                x = jnp.tanh(x)
         return x
 
 
@@ -143,7 +161,7 @@ def identity_filter_params(geometry: Geometry, dtype=jnp.float32):
     assert len(geometry.layers) == 1
     cin, kh, kw, cout = geometry.layers[0]
     assert cout == kh * kw * cin, "identity filter needs cout == kh*kw*cin"
-    # flax Conv kernel shape: (kh, kw, cin, cout)
+    # conv kernel shape: (kh, kw, cin, cout)
     kernel = jnp.zeros((kh, kw, cin, cout), dtype)
     for i in range(kh):
         for j in range(kw):

@@ -5,7 +5,7 @@ Rebuilds getModel + prepareInput/prepareTarget/processOutput
 pipeline: siamese ConvFilter -> SSD matching -> softmax(-cost) -> output head
 ('max' WTA with middle tie-break, or 'mean' soft-argmax).
 
-TPU-first differences from the reference (semantics preserved):
+Differences from the reference (semantics preserved):
   * the reference crops the raw image before filtering
     (prepareInput, opticalflow_model.lua:144-148); we filter the full frame
     once and crop the *features* — numerically identical for VALID convs and
@@ -41,7 +41,7 @@ def crop_features_center(geom: Geometry, f: jnp.ndarray) -> jnp.ndarray:
 
 
 class FlowModel:
-    """Functional single-scale matcher. Params are a flax pytree from
+    """Functional single-scale matcher. Params are a pytree from
     ``init``; all methods are jit-friendly pure functions."""
 
     def __init__(self, geometry: Geometry):
@@ -79,7 +79,8 @@ class FlowModel:
         return jax.nn.softmax(-self.costs(params, img1, img2), axis=-1)
 
     def forward_fused(self, params, img1, img2):
-        """Inference fast path: Pallas fused matcher, no cost volume in HBM.
+        """Inference fast path: the fused matcher kernel, no cost volume in
+        device memory.
         Returns (idx, ey, ex, pmax), each (H'', W'')."""
         g = self.geometry
         f1 = crop_features_center(g, self.features(params, img1))

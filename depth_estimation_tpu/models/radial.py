@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -30,23 +29,32 @@ from .filters import TrunkConv
 RadialLayer = Union[str, Tuple[int, int, int, int]]
 
 
-class RadialFilter(nn.Module):
-    """Conv trunk for polar images; layers per the radial spec format."""
+class RadialFilter:
+    """Conv trunk for polar images; layers per the radial spec format.
+    Params {"params": {"layer<i>": {"kernel", "bias"}}}, i counting the
+    conv layers from 1."""
 
-    layers: Tuple[RadialLayer, ...]
+    def __init__(self, layers: Tuple[RadialLayer, ...]):
+        self.layers = layers
+        self.convs = [TrunkConv(l[3], (l[1], l[2])) for l in layers
+                      if not isinstance(l, str)]
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
+    def init(self, rng, x: jnp.ndarray) -> dict:
+        keys = jax.random.split(rng, len(self.convs))
+        cins = [x.shape[-1]] + [c.features for c in self.convs[:-1]]
+        return {"params": {
+            f"layer{i + 1}": conv.init_layer(keys[i], cins[i])
+            for i, conv in enumerate(self.convs)}}
+
+    def apply(self, params, x: jnp.ndarray) -> jnp.ndarray:
+        p = params["params"]
         i = 0
         for layer in self.layers:
             if layer == "tanh":
-                x = nn.tanh(x)
+                x = jnp.tanh(x)
             else:
-                cin, kh, kw, cout = layer
+                x = self.convs[i](p[f"layer{i + 1}"], x)
                 i += 1
-                # MXU width-folded conv (ops/s2d_conv.py) — nn.Conv-
-                # compatible params, ~3x at the 3->10 trunk shapes
-                x = TrunkConv(cout, (kh, kw), name=f"layer{i}")(x)
         return x
 
 
@@ -112,8 +120,7 @@ class RadialFlowNetwork:
     def flow_batch(self, params, polar_prev, polar_curr):
         """Throughput path: batched (B, H, W, C) polar pairs -> batched
         (flow, min_cost). One cached jitted vmap — frame batching is where
-        the TPU's parallelism comes from for these small 1-D matchers
-        (B=64 measured ~10x the single-frame rate on v5e)."""
+        the device's parallelism comes from for these small 1-D matchers."""
         if not hasattr(self, "_flow_batch_jit"):
             self._flow_batch_jit = jax.jit(
                 jax.vmap(self.flow, in_axes=(None, 0, 0)))

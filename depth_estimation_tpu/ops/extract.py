@@ -1,6 +1,6 @@
 """Confidence extraction over per-pixel window distributions.
 
-TPU rebuild of extract_output.cpp (/root/reference/extract_output.cpp:63-155
+Rebuild of extract_output.cpp (/root/reference/extract_output.cpp:63-155
 ExtractOutput, :157-255 ExtractOutputMarginalized — the file ships two
 identical copies of the latter): the reference scans each pixel's
 distribution, collects the FIRST-in-scan-order 4 (threshold >= 0.2) or 8

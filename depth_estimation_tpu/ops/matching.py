@@ -12,28 +12,26 @@ half-window (see ``prepareInput``, /root/reference/opticalflow_model.lua:131-151
 so that flat window index ``d`` means centered displacement
 ``(dy - halfh1, dx - halfw1)`` — exactly the codec in ``codecs.py``.
 
-Two implementations:
+Implementations:
 
   * ``match_ssd`` — pure JAX, returns the full cost volume. Differentiable,
     bit-exact parity path; used for training and for groundtruth generation.
-    XLA fuses the static displacement loop into one kernel.
 
-  * ``match_flow_fused`` — a Pallas TPU kernel that fuses matching, softmax
-    (flash-style online logsumexp), WTA argmin with the reference's
-    flat-pixel tie-break, and soft-argmax expectation into ONE pass, never
-    materializing the (H*W*maxh*maxw) cost volume in HBM. For a 320x180
-    frame with a 16x16 window that volume is ~59 MB/frame in f32 — the op
-    is HBM-bandwidth-bound, so this fusion, not FLOPs, is the speedup.
+  * ``match_flow_reference`` — the plain form of the fused contract
+    ``(f1, f2) -> (idx, ey, ex, pmax[, conf])``: ``match_ssd`` followed by
+    WTA, softmax, soft-argmax and the 'mean'-head confidence gate. It is
+    the test oracle and what XLA makes of the matcher without a kernel.
 
-Layout: the framework is channels-last (H, W, K) at op boundaries (NHWC is
-the TPU-native conv layout). Inside the kernel we transpose to (K, H, W) so
-the *wide* spatial dims sit on sublanes/lanes (K is usually small — 10..32 —
-and would waste 8x128 vector lanes if kept last).
+  * ``match_flow_fused`` — a Pallas kernel on the Triton route that fuses
+    matching, softmax, WTA with the reference's tie-break, soft-argmax and
+    the confidence gate into one pass, so the (H*W*maxh*maxw) cost volume
+    (~59 MB/frame in f32 at 320x180 with a 16x16 window) never reaches
+    device memory.
 
-Two further formulations (batch-on-lanes Pallas, MXU band-matmul) were
-measured SLOWER at production shapes and live in
-``ops/matching_experimental.py`` with the shootout in
-``benchmarks/bench_matcher_variants.py``.
+Where the kernel runs is decided in one place, by the platform the program
+is lowered for (``match_flow_fused``): compiled through Triton on CUDA, the
+Pallas interpreter on the CPU (which is only how the tests run), and an
+error on any other platform.
 """
 
 from __future__ import annotations
@@ -45,7 +43,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 
 # ---------------------------------------------------------------------------
@@ -65,12 +63,8 @@ def match_ssd(f1: jnp.ndarray, f2: jnp.ndarray, maxh: int, maxw: int,
         storage type and the subtraction runs in f32 on the quantized
         values, so the only reduced-precision effect is the storage
         rounding itself — the same storage-only discipline as
-        match_flow_fused's bf16 option. The resulting trained-model error
-        is model-dependent: the staged multiscale bf16 decode built on
-        this op measures ~0.08-0.12 px mean WTA-flow delta across dossier
-        retrains, straddling the 0.1 px budget — which is why config3
-        records f32 (examples/quality_dossier.json). None keeps the input
-        precision (the default for training and bit-parity paths).
+        match_flow_fused's bf16 option. None keeps the input precision
+        (the default for training and bit-parity paths).
     Returns:
       (H, W, maxh * maxw) f32 cost volume, d = dy * maxw + dx.
     """
@@ -78,9 +72,8 @@ def match_ssd(f1: jnp.ndarray, f2: jnp.ndarray, maxh: int, maxw: int,
     W = f2.shape[1] - maxw + 1
     K = f2.shape[2]
     assert f1.shape[0] == H and f1.shape[1] == W, (f1.shape, f2.shape, maxh, maxw)
-    # channels-first internally: with K last, the K~10 channel dim sits on
-    # the 128-wide lane dimension (~8% VPU utilization); with (K, H, W) the
-    # wide W dim fills the lanes
+    # channels-first internally, so each displacement's slice is a
+    # contiguous (H, W) plane per channel
     f1t = jnp.transpose(f1, (2, 0, 1))
     f2t = jnp.transpose(f2, (2, 0, 1))
     if dtype is not None:
@@ -109,438 +102,186 @@ def match_ssd_radial(f1: jnp.ndarray, f2: jnp.ndarray, hwin: int) -> jnp.ndarray
     return match_ssd(f1, f2, hwin, 1)
 
 
-# ---------------------------------------------------------------------------
-# Fused Pallas kernel: match + softmax + WTA + soft-argmax in one HBM pass
-# ---------------------------------------------------------------------------
-
-def _fused_kernel(f1_ref, f2_ref, idx_ref, py_ref, px_ref, pmax_ref,
-                  marg_ref=None, conf_ref=None, *, maxh: int, maxw: int,
-                  mid: int, th: int, conf_threshold: float = 0.11):
-    """One grid step processes a (K, TH, W) row-block of the output.
-
-    f1_ref: (K, TH, W) VMEM — reference features for this row block.
-    f2_ref: (K, TH + maxh - 1, W + maxw - 1) VMEM — search slab (overlapping
-            rows handled by the index_map below).
-    Outputs per pixel (TH, W):
-      idx  — argmin flat window index, middle tie-break (reference
-             getOutputConfidences, /root/reference/opticalflow_model.lua:153-161)
-      py/px — soft-argmax expectation of the *centered* displacement under
-             softmax(-cost) (reference getOutputConfidences2 / OutputExtractor)
-      pmax — probability mass of the best cell (confidence)
-      marg (optional, (maxh, TH, W)) — NORMALIZED y-marginal of the softmax
-             (sum over dx), the input of the 'mean'-head confidence gate
-             (getOutputConfidences2, opticalflow_model.lua:192-193).
-
-    Softmax is flash-style but ROW-LOCAL: each dy row keeps its own running
-    max and sum over dx, combined at the end — same op count as a global
-    online softmax and the per-row sums ARE the y-marginal.
-    """
-    K = f1_ref.shape[0]
-    W = f1_ref.shape[2]
-    f1 = f1_ref[...]
-
-    halfh1 = math.ceil(maxh / 2) - 1
-    halfw1 = math.ceil(maxw / 2) - 1
-
-    neg_inf = jnp.float32(-3.4e38)
-    bi = jnp.zeros((th, W), jnp.int32)                 # argmax logit (first hit)
-    bm = jnp.full((th, W), neg_inf, jnp.float32)       # best logit
-    lmid = jnp.zeros((th, W), jnp.float32)             # logit at middle index
-    m_rows, s_rows, sx_rows = [], [], []
-
-    # Fully static unroll over the search window: Mosaic requires sublane
-    # slice offsets to be static (dynamic ones must be 8-aligned), and maxh,
-    # maxw are compile-time constants anyway.
-    f2 = f2_ref[...]
-    for dy in range(maxh):
-        m = jnp.full((th, W), neg_inf, jnp.float32)    # row running max
-        s = jnp.zeros((th, W), jnp.float32)            # row sum exp(l - m)
-        sx = jnp.zeros((th, W), jnp.float32)           # row sum exp * dx
-        for dx in range(maxw):
-            d = dy * maxw + dx
-            diff = (f1 - jax.lax.slice(
-                f2, (0, dy, dx), (K, dy + th, dx + W)
-            )).astype(jnp.float32)
-            l = -jnp.sum(diff * diff, axis=0)          # (TH, W) logit
-            # argmax with first-occurrence semantics (match torch max)
-            better = l > bm
-            bi = jnp.where(better, d, bi)
-            bm = jnp.where(better, l, bm)
-            if d == mid:
-                lmid = l
-            # online softmax update (row-local)
-            m_new = jnp.maximum(m, l)
-            alpha = jnp.exp(m - m_new)
-            p = jnp.exp(l - m_new)
-            s = s * alpha + p
-            sx = sx * alpha + p * (dx - halfw1)
-            m = m_new
-        m_rows.append(m)
-        s_rows.append(s)
-        sx_rows.append(sx)
-
-    # combine rows: global max, rescale each row's sums
-    m = m_rows[0]
-    for dy in range(1, maxh):
-        m = jnp.maximum(m, m_rows[dy])
-    s = jnp.zeros((th, W), jnp.float32)
-    sy = jnp.zeros((th, W), jnp.float32)
-    sx = jnp.zeros((th, W), jnp.float32)
-    rows = []
-    for dy in range(maxh):
-        w = jnp.exp(m_rows[dy] - m)
-        r = s_rows[dy] * w
-        rows.append(r)
-        s = s + r
-        sy = sy + r * (dy - halfh1)
-        sx = sx + sx_rows[dy] * w
-
-    # Flat-pixel tie-break: if the middle (zero-flow) cell ties the max,
-    # prefer it (/root/reference/opticalflow_model.lua:158-160).
-    tie = lmid >= bm
-    idx_ref[...] = jnp.where(tie, mid, bi)
-    pmax_ref[...] = jnp.exp(bm - m) / s
-    py_ref[...] = sy / s
-    px_ref[...] = sx / s
-    if marg_ref is not None:
-        # one full-block store: Mosaic can't slice a 4-D VMEM ref whose lane
-        # dim isn't 128-aligned, so per-dy stores are not lowerable here
-        marg_ref[...] = jnp.stack(rows, axis=0) / s[None]
-    if conf_ref is not None:
-        # the 'mean'-head confidence gate, fused: extract_output's
-        # rank-weighted score is > 0 iff ANY y-marginal entry clears the
-        # threshold (all rank weights are positive), so the gate reduces to
-        # max_dy(marg) > threshold — computed here from the row sums without
-        # materializing the (maxh, H, W) marginal in HBM
-        # (ops/extract.confidences_from_marginal, equivalence-tested).
-        mx = rows[0]
-        for dy in range(1, maxh):
-            mx = jnp.maximum(mx, rows[dy])
-        conf_ref[...] = (mx > jnp.float32(conf_threshold) * s).astype(
-            jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8, 9))
-def match_flow_fused(
+@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6))
+def match_flow_reference(
     f1: jnp.ndarray, f2: jnp.ndarray, maxh: int, maxw: int,
-    block_rows: int = 8, interpret: bool = False, want_marg: bool = False,
     dtype=jnp.float32, want_conf: bool = False, conf_threshold: float = 0.11,
 ) -> Tuple[jnp.ndarray, ...]:
+    """Plain-JAX form of ``match_flow_fused``'s contract, built from the
+    cost volume: same inputs, same outputs, same ``dtype`` storage rule.
+    Accepts (H, W, K) or (B, H, W, K). Every reduction is an explicit sum
+    (no dot), so no float32 product runs at reduced matmul precision."""
+    from . import extract
+    ssd = functools.partial(match_ssd, maxh=maxh, maxw=maxw, dtype=dtype)
+    costs = ssd(f1, f2) if f1.ndim == 3 else jax.vmap(ssd)(f1, f2)
+    halfh1, halfw1 = math.ceil(maxh / 2) - 1, math.ceil(maxw / 2) - 1
+    idx = wta_from_costs(costs, halfh1 * maxw + halfw1)
+    p = softmax_scores(costs)
+    d = jnp.arange(maxh * maxw)
+    off_y = (d // maxw - halfh1).astype(jnp.float32)
+    off_x = (d % maxw - halfw1).astype(jnp.float32)
+    outs = (idx, jnp.sum(p * off_y, axis=-1), jnp.sum(p * off_x, axis=-1),
+            jnp.max(p, axis=-1))
+    if want_conf:
+        marg = p.reshape(p.shape[:-1] + (maxh, maxw)).sum(axis=-1)
+        conf = extract.confidences_from_marginal(marg, conf_threshold)
+        outs += (conf.astype(jnp.float32),)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# Fused kernel (Pallas, Triton route): match + softmax + WTA + soft-argmax
+# ---------------------------------------------------------------------------
+
+# Tile width in pixels: 32 f32 (one 128-byte line) of contiguous W per row,
+# so every load of a displaced f2 window coalesces. With the default
+# 4-row tile and 4 warps each thread decodes one pixel.
+BLOCK_COLS = 32
+NUM_WARPS = 4
+
+
+def _fused_kernel(f1_ref, f2_ref, idx_ref, ey_ref, ex_ref, pmax_ref,
+                  *conf_ref, maxh: int, maxw: int, th: int, tw: int,
+                  conf_threshold: float):
+    """One program decodes a (th, tw) tile of output pixels.
+
+    f1_ref: (1, K, th, tw) reference features of the tile.
+    f2_ref: (1, K, Hp + maxh - 1, Wp + maxw - 1) the whole search map of
+            this batch item; the tile reads its displaced windows at
+            dynamic offsets (L1/L2 serve the overlap between neighbours).
+
+    Per dy row the maxw logits stay in registers: one row maximum, then ONE
+    exp per displacement. Each row folds into a single running max / sum /
+    expectation (flash-style rescaling), and a running maximum of the
+    rescaled row sums gives the 'mean'-head gate: extract_output's
+    rank-weighted score on the y-marginal is > 0 iff any marginal entry
+    clears the threshold (all rank weights are positive), i.e.
+    max_dy(row mass) > threshold * total mass. Nothing of size maxh is held
+    per pixel.
+    """
+    K = f1_ref.shape[1]
+    y0 = pl.program_id(1) * th
+    x0 = pl.program_id(2) * tw
+    f1 = [f1_ref[0, k].astype(jnp.float32) for k in range(K)]
+    halfh1 = math.ceil(maxh / 2) - 1
+    halfw1 = math.ceil(maxw / 2) - 1
+    mid = halfh1 * maxw + halfw1
+
+    def logit(dy, dx):
+        acc = jnp.zeros((th, tw), jnp.float32)
+        for k in range(K):
+            win = f2_ref[0, k, pl.ds(y0 + dy, th), pl.ds(x0 + dx, tw)]
+            diff = f1[k] - win.astype(jnp.float32)
+            acc = acc + diff * diff
+        return -acc
+
+    def row(dy, carry):
+        m_all, s_all, sy_all, sx_all, r_max, bm, bi = carry
+        ls = [logit(dy, dx) for dx in range(maxw)]
+        m = ls[0]
+        for l in ls[1:]:
+            m = jnp.maximum(m, l)
+        s = jnp.zeros((th, tw), jnp.float32)
+        sx = jnp.zeros((th, tw), jnp.float32)
+        for dx, l in enumerate(ls):
+            p = jnp.exp(l - m)
+            s = s + p
+            sx = sx + p * float(dx - halfw1)
+            # WTA with first-occurrence semantics in flat (dy, dx) order
+            better = l > bm
+            bi = jnp.where(better, dy * maxw + dx, bi)
+            bm = jnp.where(better, l, bm)
+        m_new = jnp.maximum(m_all, m)
+        a = jnp.exp(m_all - m_new)
+        w = jnp.exp(m - m_new)
+        r = s * w
+        s_all = s_all * a + r
+        sy_all = sy_all * a + r * (dy - halfh1).astype(jnp.float32)
+        sx_all = sx_all * a + sx * w
+        r_max = jnp.maximum(r_max * a, r)
+        return m_new, s_all, sy_all, sx_all, r_max, bm, bi
+
+    neg = jnp.full((th, tw), -jnp.inf, jnp.float32)
+    zero = jnp.zeros((th, tw), jnp.float32)
+    m_all, s_all, sy_all, sx_all, r_max, bm, bi = jax.lax.fori_loop(
+        0, maxh, row,
+        (neg, zero, zero, zero, zero, neg, jnp.zeros((th, tw), jnp.int32)))
+    # flat-pixel tie-break: if the middle (zero-flow) cell ties the best,
+    # prefer it (/root/reference/opticalflow_model.lua:158-160)
+    idx_ref[0] = jnp.where(logit(halfh1, halfw1) >= bm, mid, bi)
+    inv = 1.0 / s_all
+    pmax_ref[0] = jnp.exp(bm - m_all) * inv
+    ey_ref[0] = sy_all * inv
+    ex_ref[0] = sx_all * inv
+    if conf_ref:
+        conf_ref[0][0] = (r_max > jnp.float32(conf_threshold) * s_all
+                          ).astype(jnp.float32)
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7))
+def match_flow_fused(
+    f1: jnp.ndarray, f2: jnp.ndarray, maxh: int, maxw: int,
+    dtype=jnp.float32, want_conf: bool = False, conf_threshold: float = 0.11,
+    block_rows: int = 4,
+) -> Tuple[jnp.ndarray, ...]:
     """Fused match + decode. Accepts (H, W, K) or batched (B, H, W, K)
-    inputs (batch is a native grid dimension — do NOT vmap this op; Pallas
-    ANY-space operands don't support vmap blocking).
+    features (f2 larger by maxh - 1 rows and maxw - 1 columns).
 
     Returns (idx, ey, ex, pmax), each ([B,] H, W):
       idx  int32 WTA flat window index (middle tie-break),
       ey/ex f32 soft-argmax centered displacement expectations,
       pmax f32 softmax probability of the WTA cell.
-    With want_marg=True a fifth output marg ([B,] maxh, H, W) is appended:
-    the normalized y-marginal softmax (the 'mean'-head confidence input).
-    With want_conf=True the appended output is instead the 'mean'-head
-    confidence GATE ([B,] H, W f32 0/1) — equal to
-    extract.confidences_from_marginal(marg, conf_threshold) but computed
-    in-kernel, skipping the maxh-times-larger marginal HBM write.
-    want_marg and want_conf are mutually exclusive.
+    With want_conf=True a fifth output is appended: the 'mean'-head
+    confidence GATE ([B,] H, W f32 0/1), equal to
+    extract.confidences_from_marginal on the y-marginal.
+    ``dtype`` is the feature storage type the kernel loads (bf16 halves the
+    load traffic; the arithmetic is f32 either way). ``block_rows`` (a
+    power of two) is the tile height; it only tiles the grid.
     """
-    assert not (want_marg and want_conf)
-    if not interpret and jax.default_backend() != "tpu":
-        # Mosaic kernels only compile for TPU; fall back to the interpreter
-        # on CPU meshes (tests, multi-chip dry runs)
-        interpret = True
-    squeeze = f1.ndim == 3
-    if squeeze:
-        f1, f2 = f1[None], f2[None]
-    B = f1.shape[0]
-    H = f2.shape[1] - maxh + 1
-    W = f2.shape[2] - maxw + 1
-    K = f1.shape[3]
-    assert f1.shape == (B, H, W, K)
-
-    # channels-first so wide spatial dims occupy sublanes/lanes. ``dtype``
-    # is the feature storage/VMEM type: bf16 halves the per-displacement
-    # VMEM load traffic (costs accumulate in f32 either way).
-    f1t = jnp.transpose(f1, (0, 3, 1, 2)).astype(dtype)
-    f2t = jnp.transpose(f2, (0, 3, 1, 2)).astype(dtype)
-
-    # Mosaic constraints: DMA row offsets/shapes must be sublane-aligned
-    # (8 rows for f32 tiles, 16 for bf16), so the block height is a
-    # multiple of the tile and the DMA'd slab is rounded up likewise...
-    sub = 16 if dtype == jnp.bfloat16 else 8
-    th = max(sub, (min(block_rows, H) // sub) * sub)
-    n_blocks = pl.cdiv(H, th)
-    slab_rows = -(-(th + maxh - 1) // sub) * sub
-    rows_needed = (n_blocks - 1) * th + slab_rows
-    pad1 = n_blocks * th - H
-    pad2 = rows_needed - f2t.shape[2]
-    # ... and the DMA'd slab's lane (width) dim must be a 128 multiple.
-    W2 = -(-f2.shape[2] // 128) * 128
-    padw = W2 - f2.shape[2]
-    if pad1 > 0:
-        f1t = jnp.pad(f1t, ((0, 0), (0, 0), (0, pad1), (0, 0)))
-    if pad2 > 0 or padw > 0:
-        f2t = jnp.pad(f2t, ((0, 0), (0, 0), (0, max(pad2, 0)), (0, padw)))
-
-    mid = (math.ceil(maxh / 2) - 1) * maxw + (math.ceil(maxw / 2) - 1)
-    out_shape = [
-        jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.int32),
-        jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.float32),
-        jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.float32),
-        jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.float32),
-    ]
-    if want_marg:
-        out_shape.append(
-            jax.ShapeDtypeStruct((B, maxh, n_blocks * th, W), jnp.float32))
-    if want_conf:
-        out_shape.append(
-            jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.float32))
-
-    # f2 rows overlap between adjacent grid steps (each block needs
-    # th + maxh - 1 rows starting at i*th), which BlockSpec's block-unit
-    # indexing cannot express — so f2 stays in HBM (ANY) and each program
-    # DMAs its own overlapping slab into VMEM scratch. Grid: (batch, rows).
-    def kernel_dma_f2(f1_ref, f2_ref, idx_ref, py_ref, px_ref, pmax_ref,
-                      *maybe_extra):
-        b = pl.program_id(0)
-        i = pl.program_id(1)
-
-        def body(slab, sem):
-            dma = pltpu.make_async_copy(
-                f2_ref.at[b, :, pl.ds(pl.multiple_of(i * th, sub), slab_rows), :],
-                slab, sem,
-            )
-            dma.start()
-            dma.wait()
-            _fused_kernel(f1_ref.at[0], slab,
-                          idx_ref.at[0], py_ref.at[0], px_ref.at[0],
-                          pmax_ref.at[0],
-                          maybe_extra[0].at[0] if want_marg else None,
-                          maybe_extra[0].at[0] if want_conf else None,
-                          maxh=maxh, maxw=maxw, mid=mid, th=th,
-                          conf_threshold=conf_threshold)
-        pl.run_scoped(
-            body,
-            pltpu.VMEM((K, slab_rows, W2), dtype),
-            pltpu.SemaphoreType.DMA(()),
-        )
-
-    out_specs = [
-        pl.BlockSpec((1, th, W), lambda b, i: (b, i, 0),
-                     memory_space=pltpu.VMEM)
-        for _ in range(4)
-    ]
-    if want_marg:
-        out_specs.append(
-            pl.BlockSpec((1, maxh, th, W), lambda b, i: (b, 0, i, 0),
-                         memory_space=pltpu.VMEM))
-    if want_conf:
-        out_specs.append(
-            pl.BlockSpec((1, th, W), lambda b, i: (b, i, 0),
-                         memory_space=pltpu.VMEM))
-    grid_spec = pl.GridSpec(
-        grid=(B, n_blocks),
-        in_specs=[
-            pl.BlockSpec((1, K, th, W), lambda b, i: (b, 0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),      # f2 stays in HBM; DMA slabs
-        ],
-        out_specs=out_specs,
-    )
-
-    outs = pl.pallas_call(
-        kernel_dma_f2,
-        out_shape=out_shape,
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(f1t, f2t)
-    if pad1 > 0:
-        outs = tuple(a[:, :H] if a.ndim == 3 else a[:, :, :H] for a in outs)
-    if squeeze:
-        outs = tuple(a[0] for a in outs)
-    return outs
-
-
-# ---------------------------------------------------------------------------
-# Fast Pallas kernel: norm-decomposed correlation, flash-rescaled softmax
-# ---------------------------------------------------------------------------
-
-def _fast_kernel(f1_ref, f2_ref, idx_ref, py_ref, px_ref,
-                 pmax_ref, *, maxh: int, maxw: int, mid: int, th: int):
-    """ALU-lean variant of _fused_kernel.
-
-    cost = |f1|^2 + |f2(+d)|^2 - 2 <f1, f2(+d)>; |f1|^2 is constant across
-    window cells, so argmax and softmax are computed on the partial logit
-    l' = 2 <f1, f2(+d)> - |f2(+d)|^2 (K FMAs instead of K subs + K FMAs).
-    exp(-cost) <= 1 never overflows, but it UNDERFLOWS: trained feature
-    maps reach costs of hundreds, exp(-cost) flushes to zero for every
-    cell and s = 0 poisons the decode with NaNs (caught by the quality
-    dossier on a trained model) — so the softmax accumulators use the same
-    flash-style running-max rescaling as _fused_kernel.
-
-    The norms are computed IN-KERNEL, from the same (possibly
-    reduced-precision) VMEM refs the cross terms read. This is load-bearing,
-    not a convenience: the decomposition only telescopes back to
-    |f1 - f2|^2 when all three terms see identical feature values, and
-    host-side "quantize once then upcast" is silently destroyed by XLA's
-    excess-precision optimization on TPU (--xla_allow_excess_precision,
-    set by the runtime): under jit, astype(bf16).astype(f32) is elided
-    OUTSIDE the pallas_call, so precomputed norms saw UNQUANTIZED features
-    while the kernel's cross terms saw quantized ones — O(|f|^2 eps_bf16)
-    residuals, measured 1.03 px mean EPE on a trained model vs 0.05 px for
-    storage-only error (quality dossier, on-chip). Inside the kernel the
-    buffers are physically bf16, so the rounding cannot be elided.
-
-    Floating point caveat: the decomposition rounds differently from
-    direct diff^2 (at f32-rounding level), so near-exact ties can decode
-    to a neighboring cell; use _fused_kernel for bit-parity with the
-    reference.
-    """
-    K = f1_ref.shape[0]
-    W = f1_ref.shape[2]
-    f1 = f1_ref[...]
-    f2 = f2_ref[...]
-    f1f = f1.astype(jnp.float32)
-    n1 = jnp.sum(f1f * f1f, axis=0)                      # (th, W)
-    f2f = f2.astype(jnp.float32)
-    n2 = jnp.sum(f2f * f2f, axis=0)                      # (rows2, W2)
-
-    halfh1 = math.ceil(maxh / 2) - 1
-    halfw1 = math.ceil(maxw / 2) - 1
-    neg_inf = jnp.float32(-3.4e38)
-
-    s = jnp.zeros((th, W), jnp.float32)
-    sy = jnp.zeros((th, W), jnp.float32)
-    sx = jnp.zeros((th, W), jnp.float32)
-    bi = jnp.zeros((th, W), jnp.int32)
-    bm = jnp.full((th, W), neg_inf, jnp.float32)
-    tmid = jnp.zeros((th, W), jnp.float32)
-
-    # dx outer so the expensive lane-dimension shift happens once per dx
-    # (16x) instead of once per displacement (256x); dy slices inside touch
-    # only sublane/repeat dims.
-    for dx in range(maxw):
-        f2x = jax.lax.slice(f2, (0, 0, dx), (K, f2.shape[1], dx + W))
-        n2x = jax.lax.slice(n2, (0, dx), (n2.shape[0], dx + W))
-        for dy in range(maxh):
-            d = dy * maxw + dx
-            sl = jax.lax.slice(f2x, (0, dy, 0), (K, dy + th, W))
-            # upcast BEFORE the multiply: bf16 products would re-round the
-            # large cross terms the norms must cancel against (loads stay
-            # bf16 — that was the speedup; VPU ALU runs at f32 rate anyway)
-            cross = jnp.sum(f1.astype(jnp.float32) * sl.astype(jnp.float32),
-                            axis=0)
-            n2s = jax.lax.slice(n2x, (dy, 0), (dy + th, W))
-            t = 2.0 * cross - n2s - n1   # = -cost (cost = n1 + n2s - 2 cross)
-            m_new = jnp.maximum(bm, t)
-            scale = jnp.exp(bm - m_new)
-            e = jnp.exp(t - m_new)
-            s = s * scale + e
-            sy = sy * scale + e * (dy - halfh1)
-            sx = sx * scale + e * (dx - halfw1)
-            better = t > bm
-            bi = jnp.where(better, d, bi)
-            bm = m_new
-            if d == mid:
-                tmid = t
-    tie = tmid >= bm
-    idx_ref[...] = jnp.where(tie, mid, bi)
-    pmax_ref[...] = 1.0 / s              # exp(bm - bm) / s
-    py_ref[...] = sy / s
-    px_ref[...] = sx / s
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6))
-def match_flow_fast(
-    f1: jnp.ndarray, f2: jnp.ndarray, maxh: int, maxw: int,
-    block_rows: int = 8, interpret: bool = False, dtype=jnp.float32,
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Fast-path fused matcher (norm-decomposed). Same contract/IO as
-    match_flow_fused; trades bit-parity at exact cost ties for ~2x fewer
-    VPU ops. Accepts (H, W, K) or (B, H, W, K). ``dtype`` is the feature
-    storage type (bf16 halves slab loads; norms and logits stay f32)."""
-    if not interpret and jax.default_backend() != "tpu":
-        interpret = True
     squeeze = f1.ndim == 3
     if squeeze:
         f1, f2 = f1[None], f2[None]
     B, H, W, K = f1.shape
-    W2r = f2.shape[2]
-    assert f2.shape[1] == H + maxh - 1 and W2r == W + maxw - 1
+    assert f2.shape == (B, H + maxh - 1, W + maxw - 1, K), (f1.shape, f2.shape)
+    th, tw = block_rows, BLOCK_COLS
+    assert th > 0 and th & (th - 1) == 0, block_rows
+    # pad to whole tiles (the padded pixels decode garbage and are cut
+    # below); channels-first so every tile load is W-contiguous
+    hp, wp = pl.cdiv(H, th) * th, pl.cdiv(W, tw) * tw
+    pad = ((0, 0), (0, 0), (0, hp - H), (0, wp - W))
+    f1t = jnp.pad(jnp.transpose(f1, (0, 3, 1, 2)).astype(dtype), pad)
+    f2t = jnp.pad(jnp.transpose(f2, (0, 3, 1, 2)).astype(dtype), pad)
+    n_out = 5 if want_conf else 4
+    tile = pl.BlockSpec((1, th, tw), lambda b, i, j: (b, i, j))
 
-    f1t = jnp.transpose(f1, (0, 3, 1, 2)).astype(dtype)
-    f2t = jnp.transpose(f2, (0, 3, 1, 2)).astype(dtype)
-    # The norms are computed INSIDE the kernel from the same reduced-
-    # precision refs the cross terms read (see _fast_kernel's docstring):
-    # a host-side quantize-once (astype(dtype).astype(f32)) is elided by
-    # XLA's excess-precision pass on TPU, which silently fed UNQUANTIZED
-    # norms against quantized cross terms — 1.03 px mean EPE on a trained
-    # model (on-chip dossier) vs the 0.05 px storage-quantization floor.
-
-    sub = 16 if dtype == jnp.bfloat16 else 8
-    th = max(sub, (min(block_rows, H) // sub) * sub)
-    n_blocks = pl.cdiv(H, th)
-    slab_rows = -(-(th + maxh - 1) // sub) * sub
-    rows_needed = (n_blocks - 1) * th + slab_rows
-    pad1 = n_blocks * th - H
-    pad2 = rows_needed - f2t.shape[2]
-    W2 = -(-W2r // 128) * 128
-    padw = W2 - W2r
-    if pad1 > 0:
-        f1t = jnp.pad(f1t, ((0, 0), (0, 0), (0, pad1), (0, 0)))
-    if pad2 > 0 or padw > 0:
-        f2t = jnp.pad(f2t, ((0, 0), (0, 0), (0, max(pad2, 0)), (0, padw)))
-
-    mid = (math.ceil(maxh / 2) - 1) * maxw + (math.ceil(maxw / 2) - 1)
-    out_shape = [
-        jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.int32),
-        jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.float32),
-        jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.float32),
-        jax.ShapeDtypeStruct((B, n_blocks * th, W), jnp.float32),
-    ]
-
-    def kernel(f1_ref, f2_ref, idx_ref, py_ref, px_ref, pmax_ref):
-        b = pl.program_id(0)
-        i = pl.program_id(1)
-
-        def body(slab, sem):
-            dma = pltpu.make_async_copy(
-                f2_ref.at[b, :, pl.ds(pl.multiple_of(i * th, sub), slab_rows), :],
-                slab, sem)
-            dma.start()
-            dma.wait()
-            _fast_kernel(f1_ref.at[0], slab,
-                         idx_ref.at[0], py_ref.at[0], px_ref.at[0],
-                         pmax_ref.at[0],
-                         maxh=maxh, maxw=maxw, mid=mid, th=th)
-        pl.run_scoped(
-            body,
-            pltpu.VMEM((K, slab_rows, W2), dtype),
-            pltpu.SemaphoreType.DMA(()),
+    def kernel(interpret):
+        return pl.pallas_call(
+            functools.partial(_fused_kernel, maxh=maxh, maxw=maxw, th=th,
+                              tw=tw, conf_threshold=conf_threshold),
+            grid=(B, hp // th, wp // tw),
+            in_specs=[
+                pl.BlockSpec((1, K, th, tw), lambda b, i, j: (b, 0, i, j)),
+                pl.BlockSpec((1,) + f2t.shape[1:],
+                             lambda b, i, j: (b, 0, 0, 0)),
+            ],
+            out_specs=[tile] * n_out,
+            out_shape=[jax.ShapeDtypeStruct((B, hp, wp), jnp.int32)]
+            + [jax.ShapeDtypeStruct((B, hp, wp), jnp.float32)] * (n_out - 1),
+            backend="triton",
+            compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                     num_stages=1),
+            interpret=interpret,
+            name="match_flow_fused",
         )
 
-    grid_spec = pl.GridSpec(
-        grid=(B, n_blocks),
-        in_specs=[
-            pl.BlockSpec((1, K, th, W), lambda b, i: (b, 0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, th, W), lambda b, i: (b, i, 0),
-                         memory_space=pltpu.VMEM)
-            for _ in range(4)
-        ],
-    )
-
-    idx, ey, ex, pmax = pl.pallas_call(
-        kernel, out_shape=out_shape, grid_spec=grid_spec, interpret=interpret,
-    )(f1t, f2t)
-    if pad1 > 0:
-        idx, ey, ex, pmax = (a[:, :H] for a in (idx, ey, ex, pmax))
+    # the one place the implementation is chosen: by lowering platform;
+    # any platform not listed fails to lower
+    outs = jax.lax.platform_dependent(
+        f1t, f2t, cuda=kernel(False), cpu=kernel(True))
+    outs = tuple(o[:, :H, :W] for o in outs)
     if squeeze:
-        idx, ey, ex, pmax = (a[0] for a in (idx, ey, ex, pmax))
-    return idx, ey, ex, pmax
-
-
+        outs = tuple(o[0] for o in outs)
+    return outs
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ Rebuilds postProcessImage (/root/reference/opticalflow_model.lua:323-472):
     :388-434; invalid entries sort as zeros there — here they are excluded
     properly via +inf padding and a rank select, which is the intent).
 
-TPU formulation: windows are gathered with conv-style reduce windows over a
+Formulation: windows are gathered with conv-style reduce windows over a
 one-hot histogram (mode) and a sorted gather (median) — no per-pixel loops.
 Output pixels outside the (k-cropped) interior stay zero, as in the
 reference (loops run i < h-k).

@@ -1,14 +1,15 @@
-"""Device-mesh parallelism: batch data-parallel over ICI.
+"""Device-mesh parallelism: batch data-parallel over the cards of a host.
 
 The reference has no distributed execution at all (SURVEY.md §2.5) — its only
 compute parallelism is an OpenMP thread pool
-(/root/reference/opticalflow.lua:118). The TPU-native equivalent: flow
-inference is embarrassingly parallel per frame-pair, so we shard the
-frame/patch batch across a 1-D ``dp`` mesh axis with ``NamedSharding`` and
-let XLA insert the (only needed) collectives — an all-reduce of gradients in
-training, nothing at all in inference. The model is tiny (KBs of conv
-weights), so parameters are replicated; tensor/pipeline sharding would only
-add ICI traffic for this workload and is deliberately not used.
+(/root/reference/opticalflow.lua:118). Here flow inference is embarrassingly
+parallel per frame pair, so we shard the frame/patch batch across a flat 1-D
+``dp`` mesh axis with ``NamedSharding`` and let XLA insert the (only needed)
+collectives — an all-reduce of gradients in training, nothing at all in
+inference. The mesh is flat because NVLink joins a host's cards all to all.
+The model is tiny (KBs of conv weights), so parameters are replicated;
+tensor/pipeline sharding would only add traffic between cards for this
+workload and is deliberately not used.
 """
 
 from __future__ import annotations
@@ -132,11 +133,11 @@ def spatial_sharded_flow_fn(model, mesh: Mesh, axis: str = "sp"):
 def sharded_flow_fn(model, mesh: Mesh, axis: str = "dp"):
     """Batched flow inference sharded over the mesh: (B, H, W, C) pairs ->
     per-pair decoded flow, B split across devices. Uses shard_map so each
-    device runs its own Pallas matcher on its local shard (the kernel is a
+    device runs its own matcher kernel on its local shard (the kernel is a
     per-pair program; no cross-device communication exists in this op)."""
 
     def local_forward(params, img1, img2):
-        # forward_fused is natively batched (batch = Pallas grid dim)
+        # forward_fused is natively batched (batch = kernel grid dim)
         return model.forward_fused(params, img1, img2)
 
     mapped = jax.shard_map(
@@ -169,7 +170,7 @@ def sharded_pipeline_step(est, mesh: Mesh, axis: str = "dp"):
     per-frame program (undistort -> ego-motion -> rotation compensation ->
     fused match -> masks -> depth) is per-stream, so the whole step
     partitions as pure data parallelism — shard_map splits the stream
-    batch, each device runs its own Pallas matcher + ego pipeline on its
+    batch, each device runs its own matcher kernel + ego pipeline on its
     local shard, and no collective is emitted (use jax.debug or the
     compiled HLO to confirm). Stream state (previous frames + features)
     stays sharded between steps."""

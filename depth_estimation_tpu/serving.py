@@ -3,8 +3,8 @@
 The deployment regime the reference handles with its C++ API boundary
 (/root/reference/depth_estimation_api.lua consumed from ardrone/ C++): a
 serving host should not need the research package, its model classes, or
-checkpoint parsing — just a program and its weights. On TPU the natural
-artifact is a serialized `jax.export` module: the jitted inference program
+checkpoint parsing — just a program and its weights. The natural artifact
+is a serialized `jax.export` module: the jitted inference program
 with the trained parameters folded in as constants, versioned StableHLO,
 reloadable with jax alone and jit-compiled on the serving host (the
 persistent compilation cache, utils/compcache.py, makes that a one-time
@@ -24,8 +24,10 @@ Exporters cover every trainable model family (5/5):
   * export_legacy_depth — the legacy depth classifier's fully-convolutional
     inference-on-image class map (depth_estimation.lua:340-404).
 
-Artifacts are lowered for the platform they are exported on (export on the
-TPU host for TPU serving). Use `load_exported(path).call(*args)` to serve.
+Artifacts are lowered for the platform they are exported on. Use
+`load_exported(path).call(*args)` to serve. The matcher kernel lowers to a
+Triton custom call on CUDA, which jax.export does not serialize without an
+explicit opt-in; exporting on the GPU is open work (ROADMAP R7).
 """
 
 from __future__ import annotations
@@ -85,8 +87,7 @@ def export_flow_forward(geometry: Geometry, params, path: str | None = None,
         def forward(img1, img2):
             f1 = crop_features_center(g, model.features(params, img1))
             f2 = model.features(params, img2)
-            return matching.match_flow_fused(f1, f2, g.maxh, g.maxw, 8,
-                                             False, False, dtype)
+            return matching.match_flow_fused(f1, f2, g.maxh, g.maxw, dtype)
 
     ex = jnp.zeros((g.hImg, g.wImg, 3), jnp.float32)
     return export_jitted(forward, (ex, ex), path)
@@ -207,8 +208,9 @@ def cmd_export(args) -> int:
     """`tools export`: write a serving artifact for a trained model dir.
     The model family (single/multiscale flow, radial, version2, legacy
     depth) is autodetected from the checkpoint layout."""
-    import flax.serialization
     import jax.random
+
+    from .models.io import from_bytes
 
     family, meta = detect_family(args.model)
     out = args.out or os.path.join(args.model, "serving.stablehlo")
@@ -229,7 +231,7 @@ def cmd_export(args) -> int:
         layers = tuple(tuple(l) if isinstance(l, list) else l
                        for l in meta["layers"])
         net = RadialFlowNetwork(layers, meta["hWin"])
-        params = flax.serialization.from_bytes(
+        params = from_bytes(
             net.init(jax.random.PRNGKey(0)),
             _latest_epoch_payload(args.model, ".msgpack"))
         hw = tuple(args.hw) if args.hw else (200, 200)
@@ -246,7 +248,7 @@ def cmd_export(args) -> int:
         else:
             datap = V2Params()
         net = V2Network(datap)
-        params = flax.serialization.from_bytes(
+        params = from_bytes(
             net.init(jax.random.PRNGKey(0)),
             _latest_epoch_payload(args.model, ""))
         data = export_v2_forward(datap, params, path=out)
@@ -257,7 +259,7 @@ def cmd_export(args) -> int:
         template = model.init(jax.random.PRNGKey(0),
                               jnp.zeros((1, patch, patch, 2), jnp.float32))
         with open(os.path.join(args.model, "params.msgpack"), "rb") as fh:
-            params = flax.serialization.from_bytes(template, fh.read())
+            params = from_bytes(template, fh.read())
         hw = tuple(args.hw) if args.hw else (360, 640)
         data = export_legacy_depth(meta["n_classes"], params, frame_hw=hw,
                                    path=out)

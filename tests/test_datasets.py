@@ -181,8 +181,8 @@ def test_scale_np_matches_device_scale():
 
 
 def test_scale_batched_device_matches_resize():
-    """The device-side separable-matmul resize (MXU form used by bench.py
-    and the batched pipeline) must reproduce jax.image.resize bilinear."""
+    """The device-side separable-matmul resize (used by bench.py and the
+    batched pipeline) must reproduce jax.image.resize bilinear."""
     import jax
     import jax.numpy as jnp
     from depth_estimation_tpu.data.images import scale_batched_device

@@ -231,7 +231,7 @@ def test_essential_egomotion_synthetic():
 
 
 def test_sample_patches_matmul_matches_gather():
-    """The MXU (one-hot matmul) patch sampler must reproduce the gather
+    """The one-hot matmul patch sampler must reproduce the gather
     formulation bit-closely, including out-of-frame clamping."""
     rng = np.random.RandomState(3)
     img = jnp.asarray(rng.rand(40, 56).astype(np.float32))

@@ -1,9 +1,13 @@
 """Matcher op tests, modeled on the reference's analytic invariants:
 brute-force SSD argmin equality (/root/reference/tests/test_multiscale.lua:135-166)
 and WTA decode with middle tie-break (/root/reference/opticalflow_model.lua:153-161).
-The fused Pallas kernel runs in interpret mode on CPU."""
+The fused kernel runs in the Pallas interpreter on the CPU; the tests
+marked ``gpu`` run it compiled on a card."""
 
 import math
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -76,8 +80,7 @@ def test_wta_middle_tiebreak():
 
 def _fused_interpret(f1, f2, maxh, maxw, block_rows=4):
     return matching.match_flow_fused(
-        jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, block_rows, True
-    )
+        jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, block_rows=block_rows)
 
 
 @pytest.mark.parametrize("maxh,maxw", [(8, 8), (5, 7)])
@@ -129,21 +132,6 @@ def test_radial_matching():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.slow
-def test_fast_kernel_agrees_with_fused():
-    """Norm-decomposed fast path decodes identically on non-degenerate
-    inputs (interpret mode, small size)."""
-    maxh = maxw = 8
-    rng = np.random.RandomState(7)
-    g1 = jnp.asarray(rng.rand(16, 20, 6), np.float32)
-    g2 = jnp.asarray(rng.rand(23, 27, 6), np.float32)
-    i1, y1, x1, p1 = matching.match_flow_fused(g1, g2, maxh, maxw, 8, True)
-    i2, y2, x2, p2 = matching.match_flow_fast(g1, g2, maxh, maxw, 8, True)
-    assert (np.asarray(i1) == np.asarray(i2)).mean() > 0.99
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y2), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(p1), np.asarray(p2), atol=1e-6)
-
-
 
 
 def test_entropy_mask():
@@ -156,29 +144,31 @@ def test_entropy_mask():
 
 
 def test_fused_marginal_output():
-    """want_marg=True appends the normalized y-marginal (sum over dx of the
-    softmax), matching the marginalization in getOutputConfidences2
-    (/root/reference/opticalflow_model.lua:192-193)."""
+    """The plain form's 'mean'-head gate marginalizes the softmax over dx
+    (getOutputConfidences2, /root/reference/opticalflow_model.lua:192-193)
+    before the thresholded extraction: it equals
+    extract.mean_head_confidences on the full window distribution, and the
+    base outputs do not depend on want_conf."""
+    from depth_estimation_tpu.ops import extract
     maxh, maxw = 6, 4
     rng = np.random.RandomState(7)
     H, W, K = 9, 12, 5
-    f1 = rng.randn(H, W, K).astype(np.float32)
-    f2 = rng.randn(H + maxh - 1, W + maxw - 1, K).astype(np.float32)
+    f1 = (0.3 * rng.randn(H, W, K)).astype(np.float32)
+    f2 = (0.3 * rng.randn(H + maxh - 1, W + maxw - 1, K)).astype(np.float32)
 
     costs = matching.match_ssd(jnp.asarray(f1), jnp.asarray(f2), maxh, maxw)
-    p = np.asarray(matching.softmax_scores(costs))
-    want_marg = p.reshape(H, W, maxh, maxw).sum(-1)       # (H, W, maxh)
-
-    idx, ey, ex, pmax, marg = matching.match_flow_fused(
-        jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, 4, True, True)
-    assert marg.shape == (maxh, H, W)
-    np.testing.assert_allclose(np.moveaxis(np.asarray(marg), 0, -1),
-                               want_marg, rtol=1e-4, atol=1e-5)
-    # and the base outputs are unchanged by the extra output
-    idx0, ey0, ex0, pmax0 = matching.match_flow_fused(
-        jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, 4, True)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(idx0))
-    np.testing.assert_allclose(np.asarray(ey), np.asarray(ey0), rtol=1e-6)
+    p = matching.softmax_scores(costs)
+    # a threshold at which the gate splits this input's pixels
+    want = np.asarray(extract.mean_head_confidences(p, maxh, maxw, 0.2))
+    outs = matching.match_flow_reference(jnp.asarray(f1), jnp.asarray(f2),
+                                         maxh, maxw, jnp.float32, True, 0.2)
+    assert outs[4].shape == (H, W)
+    np.testing.assert_array_equal(np.asarray(outs[4]) > 0.5, want)
+    assert 0 < want.sum() < want.size
+    base = matching.match_flow_reference(jnp.asarray(f1), jnp.asarray(f2),
+                                         maxh, maxw)
+    for a, b in zip(outs[:4], base):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_entropy_mask_exact_values_and_monotonicity():
@@ -215,15 +205,14 @@ def test_entropy_mask_exact_values_and_monotonicity():
 def test_fused_kernel_bf16_parity():
     """The bf16 feature path of match_flow_fused must agree with f32 on the
     WTA index nearly everywhere and on soft-argmax within bf16 tolerance."""
-    from depth_estimation_tpu.ops import matching
     rng = np.random.RandomState(7)
     maxh = maxw = 8
     H, W, K = 24, 32, 6
     f1 = jnp.asarray(rng.rand(H, W, K), jnp.float32)
     f2 = jnp.asarray(rng.rand(H + maxh - 1, W + maxw - 1, K), jnp.float32)
-    o32 = matching.match_flow_fused(f1, f2, maxh, maxw, 8, True)
-    o16 = matching.match_flow_fused(f1, f2, maxh, maxw, 16, True, False,
-                                    jnp.bfloat16)
+    o32 = matching.match_flow_fused(f1, f2, maxh, maxw)
+    o16 = matching.match_flow_fused(f1, f2, maxh, maxw, jnp.bfloat16,
+                                    block_rows=8)
     idx_agree = (np.asarray(o32[0]) == np.asarray(o16[0])).mean()
     assert idx_agree > 0.9, idx_agree
     np.testing.assert_allclose(np.asarray(o32[1]), np.asarray(o16[1]),
@@ -232,104 +221,27 @@ def test_fused_kernel_bf16_parity():
                                atol=0.05)
 
 
-
-
-@pytest.mark.slow
-def test_kernels_f16_parity():
-    """f16 feature STORAGE (10 mantissa bits at bf16's 2-byte traffic) must
-    agree with f32 much tighter than bf16 does. Contract test on random
-    features; the trained-model EPE budget call (0.0065 px in interpret
-    mode, quality dossier) additionally needs the on-chip precision run —
-    interpret-mode precision has disagreed with the chip before (fast
-    bf16: ~1 px on-chip vs 0.05 px interpret on identical code)."""
-    from depth_estimation_tpu.ops import matching
-    rng = np.random.RandomState(7)
-    maxh = maxw = 8
-    H, W, K = 24, 32, 6
-    f1 = jnp.asarray(rng.rand(H, W, K), jnp.float32)
-    f2 = jnp.asarray(rng.rand(H + maxh - 1, W + maxw - 1, K), jnp.float32)
-    o32 = matching.match_flow_fused(f1, f2, maxh, maxw, 8, True)
-    for o16 in (
-            matching.match_flow_fused(f1, f2, maxh, maxw, 16, True, False,
-                                      jnp.float16),
-            matching.match_flow_fast(f1, f2, maxh, maxw, 16, True,
-                                     jnp.float16)):
-        idx_agree = (np.asarray(o32[0]) == np.asarray(o16[0])).mean()
-        assert idx_agree > 0.97, idx_agree
-        np.testing.assert_allclose(np.asarray(o32[2]), np.asarray(o16[2]),
-                                   atol=0.05)
-
-
-@pytest.mark.slow
-def test_fast_kernel_bf16_parity():
-    """bf16 feature storage in match_flow_fast agrees with the f32 fused
-    kernel on nearly all WTA indices and on soft-argmax within tolerance
-    (the bench.py headline configuration)."""
-    from depth_estimation_tpu.ops import matching
-    rng = np.random.RandomState(11)
-    maxh = maxw = 8
-    H, W, K = 32, 40, 6
-    f1 = jnp.asarray(rng.rand(H, W, K), jnp.float32)
-    f2 = jnp.asarray(rng.rand(H + maxh - 1, W + maxw - 1, K), jnp.float32)
-    o32 = matching.match_flow_fused(f1, f2, maxh, maxw, 8, True)
-    of = matching.match_flow_fast(f1, f2, maxh, maxw, 32, True,
-                                  jnp.bfloat16)
-    agree = (np.asarray(o32[0]) == np.asarray(of[0])).mean()
-    assert agree > 0.9, agree
-    np.testing.assert_allclose(np.asarray(o32[2]), np.asarray(of[2]),
-                               atol=0.25)
-
-
-@pytest.mark.slow
-def test_fast_kernel_large_magnitude_features():
-    """Regression: trained feature maps reach costs of hundreds; the
-    norm-decomposed kernel's softmax must not underflow to s = 0 / NaN
-    (caught by the quality dossier on a trained model — fixed with
-    flash-style rescaling, matching _fused_kernel)."""
-    rng = np.random.RandomState(13)
-    maxh = maxw = 8
-    H, W, K = 24, 32, 10
-    f1 = jnp.asarray(rng.randn(H, W, K) * 30.0, jnp.float32)
-    f2 = jnp.asarray(rng.randn(H + maxh - 1, W + maxw - 1, K) * 30.0,
-                     jnp.float32)
-    i_fast, y_fast, x_fast, p_fast = matching.match_flow_fast(
-        f1, f2, maxh, maxw, 8, True)
-    assert np.isfinite(np.asarray(y_fast)).all()
-    assert np.isfinite(np.asarray(x_fast)).all()
-    assert np.isfinite(np.asarray(p_fast)).all()
-    i_ref, y_ref, x_ref, p_ref = matching.match_flow_fused(
-        f1, f2, maxh, maxw, 8, True)
-    assert (np.asarray(i_fast) == np.asarray(i_ref)).mean() > 0.99
-    np.testing.assert_allclose(np.asarray(y_fast), np.asarray(y_ref),
-                               atol=1e-3)
-    np.testing.assert_allclose(np.asarray(p_fast), np.asarray(p_ref),
-                               atol=1e-3)
-
-
 def test_fused_block_rows_is_pure_blocking():
     """block_rows only tiles the row grid — every output must be identical
-    across block sizes (the benches rely on this to run block 32)."""
-    import jax.numpy as jnp
+    across tile heights."""
     maxh, maxw = 6, 4
     rng = np.random.RandomState(13)
     H, W, K = 40, 24, 5
-    f1 = rng.randn(H, W, K).astype(np.float32)
-    f2 = rng.randn(H + maxh - 1, W + maxw - 1, K).astype(np.float32)
-    ref = matching.match_flow_fused(jnp.asarray(f1), jnp.asarray(f2),
-                                    maxh, maxw, 4, True)
-    for block in (8, 32, 64):
-        out = matching.match_flow_fused(jnp.asarray(f1), jnp.asarray(f2),
-                                        maxh, maxw, block, True)
+    f1 = jnp.asarray(rng.randn(H, W, K).astype(np.float32))
+    f2 = jnp.asarray(rng.randn(H + maxh - 1, W + maxw - 1, K).astype(
+        np.float32))
+    ref = matching.match_flow_fused(f1, f2, maxh, maxw, block_rows=4)
+    for block in (2, 8, 16):
+        out = matching.match_flow_fused(f1, f2, maxh, maxw, block_rows=block)
         for a, b in zip(ref, out):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_fused_conf_gate_matches_marginal_extraction():
     """want_conf=True appends the 'mean'-head confidence gate computed
-    in-kernel; it must equal confidences_from_marginal on the want_marg
-    output (the extract_output score is > 0 iff any marginal entry clears
-    the threshold — all rank weights are positive)."""
-    import jax.numpy as jnp
+    in-kernel; it must equal confidences_from_marginal on the plain form's
+    y-marginal (the extract_output score is > 0 iff any marginal entry
+    clears the threshold — all rank weights are positive)."""
     from depth_estimation_tpu.ops import extract
     maxh, maxw = 6, 4
     rng = np.random.RandomState(11)
@@ -338,15 +250,15 @@ def test_fused_conf_gate_matches_marginal_extraction():
     # threshold (both gate outcomes exercised)
     f1 = (0.3 * rng.randn(H, W, K)).astype(np.float32)
     f2 = (0.3 * rng.randn(H + maxh - 1, W + maxw - 1, K)).astype(np.float32)
+    costs = matching.match_ssd(jnp.asarray(f1), jnp.asarray(f2), maxh, maxw)
+    p = matching.softmax_scores(costs)
+    marg = p.reshape(H, W, maxh, maxw).sum(-1)
     wants = []
     for thr in (0.11, 0.2):
-        idx, ey, ex, pmax, marg = matching.match_flow_fused(
-            jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, 4, True, True)
-        want = np.asarray(extract.confidences_from_marginal(
-            jnp.moveaxis(jnp.asarray(marg), 0, -1), thr))
+        want = np.asarray(extract.confidences_from_marginal(marg, thr))
         outs = matching.match_flow_fused(
-            jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, 4, True, False,
-            jnp.float32, True, thr)
+            jnp.asarray(f1), jnp.asarray(f2), maxh, maxw, jnp.float32, True,
+            thr)
         conf = np.asarray(outs[4])
         assert conf.shape == (H, W)
         assert set(np.unique(conf)) <= {0.0, 1.0}
@@ -354,3 +266,77 @@ def test_fused_conf_gate_matches_marginal_extraction():
         wants.append(want)
     # both outcomes exercised somewhere across the thresholds
     assert any(0 < w.sum() < w.size for w in wants)
+
+
+@pytest.mark.parametrize("B,H,W,K,maxh,maxw,dtype,want_conf", [
+    (2, 10, 13, 3, 5, 7, jnp.float32, True),     # B>1, maxh != maxw
+    (1, 9, 40, 5, 6, 4, jnp.float32, False),     # W spans two tiles
+    (3, 7, 33, 4, 8, 8, jnp.bfloat16, True),     # bf16 storage
+    (2, 6, 11, 4, 4, 6, jnp.float16, True),      # f16 storage
+])
+def test_fused_kernel_matches_plain_form(B, H, W, K, maxh, maxw, dtype,
+                                         want_conf):
+    """The kernel (Triton route, interpreted here) against the plain form
+    at the same storage type, on shapes whose H and W are not powers of
+    two: identical WTA index and gate, f32-rounding-level expectations."""
+    rng = np.random.RandomState(B * 100 + H)
+    f1 = jnp.asarray(0.4 * rng.randn(B, H, W, K), jnp.float32)
+    f2 = jnp.asarray(0.4 * rng.randn(B, H + maxh - 1, W + maxw - 1, K),
+                     jnp.float32)
+    got = matching.match_flow_fused(f1, f2, maxh, maxw, dtype, want_conf)
+    want = matching.match_flow_reference(f1, f2, maxh, maxw, dtype,
+                                         want_conf)
+    assert len(got) == len(want) == (5 if want_conf else 4)
+    assert all(g.shape == (B, H, W) for g in got)
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    for a, b in zip(got[1:4], want[1:4]):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-5, atol=2e-6)
+    if want_conf:
+        np.testing.assert_array_equal(np.asarray(got[4]),
+                                      np.asarray(want[4]))
+
+
+def test_fused_kernel_batch_items_independent():
+    """A batched call equals per-item calls (batch is a grid dimension)."""
+    rng = np.random.RandomState(21)
+    f1 = jnp.asarray(rng.randn(3, 6, 9, 3), jnp.float32)
+    f2 = jnp.asarray(rng.randn(3, 9, 12, 3), jnp.float32)
+    both = matching.match_flow_fused(f1, f2, 4, 4, jnp.float32, True)
+    for b in range(3):
+        one = matching.match_flow_fused(f1[b], f2[b], 4, 4, jnp.float32, True)
+        for a, c in zip(both, one):
+            np.testing.assert_array_equal(np.asarray(a)[b], np.asarray(c))
+
+
+@pytest.mark.parametrize("platform,ok", [("cuda", True), ("rocm", False)])
+def test_fused_kernel_implementation_by_platform(platform, ok):
+    """The one place the implementation is chosen: lowering for CUDA emits
+    the Triton kernel; the CPU runs the interpreter (every test above); any
+    other platform fails to lower instead of falling back."""
+    shapes = (jax.ShapeDtypeStruct((2, 150, 290, 10), jnp.float32),
+              jax.ShapeDtypeStruct((2, 165, 305, 10), jnp.float32))
+    fn = jax.jit(lambda a, b: matching.match_flow_fused(
+        a, b, 16, 16, jnp.float32, True))
+    traced = fn.trace(*shapes)
+    if ok:
+        text = traced.lower(lowering_platforms=(platform,)).as_text()
+        assert "xla.gpu.triton" in text
+    else:
+        with pytest.raises(Exception, match="platform"):
+            traced.lower(lowering_platforms=(platform,))
+
+
+@pytest.mark.gpu
+def test_fused_kernel_on_gpu_matches_plain_form(gpu_env):
+    """The compiled kernel on the card against the plain form at the car
+    model's real widths (the chip_smoke.py matcher phase, at B=4)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import chip_smoke as cs\n"
+            "from depth_estimation_tpu.models import io\n"
+            "g, _, params, _ = io.load_model(cs.CAR_MODEL)\n"
+            "print(cs.phase_matcher(g, params, 0, batch=4))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env=gpu_env, capture_output=True, text=True,
+                         timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]

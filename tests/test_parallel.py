@@ -39,7 +39,7 @@ def test_spatial_halo_sharding_matches_unsharded(mesh8):
     f1 = crop_features_center(g, model.features(params, p1))
     f2 = model.features(params, p2)
     idx_u, ey_u, ex_u, pm_u = matching.match_flow_fused(
-        f1, f2, g.maxh, g.maxw, 8, True)
+        f1, f2, g.maxh, g.maxw)
 
     np.testing.assert_array_equal(np.asarray(idx_s)[:H],
                                   np.asarray(idx_u)[:H])

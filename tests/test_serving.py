@@ -122,7 +122,7 @@ def test_radial_export_roundtrip_and_cli(tmp_path):
     cli/train_radial.py checkpoint layout (meta.json layers/hWin +
     e<N>.msgpack)."""
     import json
-    import flax.serialization
+    from depth_estimation_tpu.models.io import to_bytes
     from depth_estimation_tpu.cli import tools
     from depth_estimation_tpu.models.radial import RadialFlowNetwork
 
@@ -148,7 +148,7 @@ def test_radial_export_roundtrip_and_cli(tmp_path):
     mdir.mkdir()
     (mdir / "meta.json").write_text(json.dumps(
         {"version": 1, "layers": [list(l) for l in layers], "hWin": h_win}))
-    (mdir / "e0.msgpack").write_bytes(flax.serialization.to_bytes(params))
+    (mdir / "e0.msgpack").write_bytes(to_bytes(params))
     out = str(tmp_path / "radial_cli.stablehlo")
     assert tools.main(["export", str(mdir), "--out", out,
                        "--hw", str(hw[0]), str(hw[1])]) == 0
@@ -161,7 +161,7 @@ def test_v2_export_roundtrip_and_cli(tmp_path):
     layouts: meta.json sidecar and the reference's bare e<N> payloads
     (version2/train.lua 'models/e<N>_no_bin')."""
     import json
-    import flax.serialization
+    from depth_estimation_tpu.models.io import to_bytes
     from depth_estimation_tpu import codecs
     from depth_estimation_tpu.cli import tools
     from depth_estimation_tpu.models.version2 import V2Network, V2Params
@@ -199,7 +199,7 @@ def test_v2_export_roundtrip_and_cli(tmp_path):
          "hImg": datap.hImg, "normalization_k": datap.normalization_k,
          "layers": [list(l) for l in datap.layers],
          "hWin": datap.hWin, "wWin": datap.wWin}))
-    (mdir / "e0").write_bytes(flax.serialization.to_bytes(params))
+    (mdir / "e0").write_bytes(to_bytes(params))
     out = str(tmp_path / "v2_cli.stablehlo")
     assert tools.main(["export", str(mdir), "--out", out]) == 0
     got = serving.load_exported(out).call(img1, img2)
@@ -219,7 +219,7 @@ def test_legacy_depth_export_roundtrip_and_cli(tmp_path):
     params.msgpack); the artifact is the fully-convolutional class map
     (depth_estimation.lua:340-404)."""
     import json
-    import flax.serialization
+    from depth_estimation_tpu.models.io import to_bytes
     from depth_estimation_tpu.cli import tools
     from depth_estimation_tpu.models.legacy_depth import DepthClassifierCNN
 
@@ -244,7 +244,7 @@ def test_legacy_depth_export_roundtrip_and_cli(tmp_path):
         {"n_classes": n_classes, "cut_depth": 2.0, "bin_step": 1.0,
          "patch": 48}))
     (mdir / "params.msgpack").write_bytes(
-        flax.serialization.to_bytes(params))
+        to_bytes(params))
     out = str(tmp_path / "depth_cli.stablehlo")
     assert tools.main(["export", str(mdir), "--out", out,
                        "--hw", str(hw[0]), str(hw[1])]) == 0
